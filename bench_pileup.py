@@ -81,10 +81,9 @@ def main() -> None:
             c = run_c()
             if c is not None and (c_best is None or c < c_best):
                 c_best = c
-        # three ours-draws per interleaved round (our run is ~9x cheaper
-        # than a C round): a C draw spans ~45s of phase drift while an
-        # ours draw samples a ~5s window, so extra ours draws are the
-        # cheap way to keep the min off a phase-noise spike
+        # three ours-draws per interleaved round (our run is cheaper than
+        # a C round), the cheap way to keep the min off a phase-noise
+        # spike
         for _ in range(3):
             dt = run_ours()
             if dt is not None and (best is None or dt < best):
@@ -126,8 +125,8 @@ def main() -> None:
 
         run_ours_small()
         cs_best, s_best = None, None
-        # 3 interleaved rounds x 3 ours-draws: an ours draw is ~0.5s, so
-        # extra draws are nearly free and keep the min off phase spikes
+        # 3 interleaved rounds x 3 ours-draws: extra ours draws are cheap
+        # and keep the min off phase spikes
         for _ in range(3):
             if exe:
                 c = run_c_small()
@@ -195,8 +194,8 @@ def main() -> None:
     # per-stage core-second breakdown (round-3 verdict item 1b): stage-
     # isolated wall+cpu recorded INTO the bench artifact, so the result —
     # above or below 10x — carries its own evidence. inflate_1core.cpu_s
-    # is the irreducible per-core decode cost; on this 2-core host the
-    # wall floor is core_seconds_total / 2.
+    # is the irreducible per-core decode cost; on an N-core host the
+    # wall floor is core_seconds_total / N.
     try:
         from ngstpu.testing.pileup_profile import profile_stages
         payload["stage_breakdown"] = {

@@ -1,14 +1,14 @@
-"""ngstpu — TPU-native high-performance NGS preprocessing framework.
+"""ngstpu — high-performance NGS preprocessing on an accelerator with JAX.
 
 A ground-up reimplementation of the capabilities of the reference C toolkit
-(xiongxu/HighPerformanceNGS) designed TPU-first:
+(xiongxu/HighPerformanceNGS) with the compute on the device:
 
 - ``ngstpu.io``       host I/O runtime: gzip/FASTQ/BAM chunk decoding into
                       fixed-shape padded device batches (C++ fast path via
                       ctypes, pure-numpy fallback).
 - ``ngstpu.ops``      device compute: histograms/QC stats, trimming, 2-bit
                       packing, sort/dedup engine, pileup/coverage — jax.numpy
-                      + Pallas TPU kernels.
+                      and lax, compiled by XLA.
 - ``ngstpu.parallel`` multi-chip/multi-host scale-out: jax.sharding Mesh,
                       shard_map data parallelism, psum/all_gather merges.
 - ``ngstpu.rng``      bit-exact RNG parity (GSL MT19937, glibc rand, X31).

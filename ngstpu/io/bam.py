@@ -304,9 +304,9 @@ def choose_pileup_mode(path: str) -> str:
 
     Heuristic: events estimated from the compressed size (~50 compressed
     bytes per event on typical 100bp-read BAMs); the event path wins
-    below ~1 event per 8 genome positions (measured on this host with
-    the fused native emitter — e.g. the 20Mbp/1M-read regime runs 0.49s
-    in event mode vs 0.55s dense, warm), the dense scatter above it.
+    below ~1 event per 8 genome positions (the crossover found on the
+    host this was first tuned on, with the fused native emitter; not
+    re-measured on the H100 host), the dense scatter above it.
     NGSTPU_PILEUP_MODE=dense|events|sparse overrides.
     """
     mode = os.environ.get("NGSTPU_PILEUP_MODE")
@@ -439,11 +439,10 @@ def stream_depth_dense(path: str, flag_mask: int,
             return (a if a is not None else empty), int(ev_counts[t])
 
         # Producer-thread prefetch overlaps the next chunk's inflate with
-        # this chunk's scatter (re-measured a win once the inflater went
-        # mmap + raw-DEFLATE; the pre-mmap read()+inflate producer lost
-        # to strict alternation on this 2-core host). PooledInflater
-        # hands back carry ++ inflated-batch views over pooled buffers:
-        # no whole-chunk copies, no cross-run page faults.
+        # this chunk's scatter (a win once the inflater went mmap +
+        # raw-DEFLATE). PooledInflater hands back carry ++ inflated-batch
+        # views over pooled buffers: no whole-chunk copies, no cross-run
+        # page faults.
         carry = np.frombuffer(initial_carry, np.uint8)
         final = False
         while True:
@@ -626,9 +625,9 @@ def _gen_events(inf, initial_carry: bytes, n_refs: int, flag_mask: int,
         # starts half of a coordinate-sorted input is ascending, which
         # merged_intervals_runs exploits to sort only the ends half.
         # pooled_flush=True rotates three pooled buffer pairs instead of
-        # allocating fresh arrays per chromosome (a measured fault-noise
-        # source on this host) — CONTRACT: a yielded (pos, delta) is then
-        # valid only until the THIRD following flush; the CLI tools
+        # allocating fresh arrays per chromosome (page faults) —
+        # CONTRACT: a yielded (pos, delta) is then valid only until the
+        # THIRD following flush; the CLI tools
         # consume each chromosome before pulling two more (even through
         # their 1-deep prefetch), while collect-everything callers keep
         # the default copy semantics.

@@ -229,10 +229,9 @@ class PooledInflater:
 
     The compressed side is mmapped (MADV_SEQUENTIAL): header scans and the
     native inflate read the page cache directly, eliminating the
-    f.read() copy of every compressed byte (~1 GB of memcpy on a WGS BAM —
-    measurable on this host's ~1 GB/s memory system) and the
-    partial-block carry bytes the read() path had to stitch across chunk
-    boundaries.
+    f.read() copy of every compressed byte (~1 GB of memcpy on a WGS BAM)
+    and the partial-block carry bytes the read() path had to stitch across
+    chunk boundaries.
 
     prefetch=True overlaps the NEXT chunk's read+inflate with the caller's
     processing of the current one: inflation lands at a fixed reserve
@@ -302,9 +301,9 @@ class PooledInflater:
         inflater's pooled rotation buffers (depth+2 chunk-sized maps for
         the prefetch path) to the OS — several hundred MB of RSS a
         long-lived process may not want pinned. The default keeps them
-        pooled for warm reuse (this host's page-fault path is slow and
-        erratic, so re-faulting them per run costs far more than the
-        resident pages); NGSTPU_RELEASE_BUFFERS=1 flips the default."""
+        pooled for warm reuse (where the page-fault path is slow,
+        re-faulting them per run costs far more than the resident pages);
+        NGSTPU_RELEASE_BUFFERS=1 flips the default."""
         if self._t is not None:
             self._stop = True
             try:  # unblock a producer stuck in put()

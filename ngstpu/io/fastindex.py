@@ -140,9 +140,9 @@ def _inflate_gz_members_parallel(lib, raw: np.ndarray,
     member's decode fail or its produced size mismatch, and the caller
     falls back to the sequential whole-file walk with identical output.
     Returns None when the layout doesn't hold (single member, implausible
-    trailer sizes, or any decode mismatch). Halves the gz fast-path
-    inflate wall on this 2-core host (the reference decodes serially
-    through zlib's gzgets either way, IO_stream.h:122-136)."""
+    trailer sizes, or any decode mismatch). Spreads the gz fast-path
+    inflate over the host's cores (the reference decodes serially through
+    zlib's gzgets either way, IO_stream.h:122-136)."""
     from ..utils.bufpool import get_buffer
 
     n = len(raw)

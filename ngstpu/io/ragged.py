@@ -1,6 +1,6 @@
 """Vectorized ragged<->padded byte-array conversions.
 
-TPU compute wants fixed shapes; FASTQ/BAM records are ragged. These helpers
+Device compute wants fixed shapes; FASTQ/BAM records are ragged. These helpers
 convert between a flat byte stream with per-record (start, len) and a padded
 [B, Lmax] uint8 matrix with a length vector, using single numpy gathers and
 scatters (no per-record Python loops). This is the padded-shape policy used by

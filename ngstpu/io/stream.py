@@ -71,9 +71,9 @@ class _PushbackReader(io.RawIOBase):
 
 def _unlink_first(name: str) -> str:
     """Unlink before recreating: truncate-open of a file whose pages are
-    still dirty in cache forces synchronous invalidation (measured up to
-    ~0.7s per 300MB on this VM class); unlinking lets the kernel drop the
-    old inode's dirty pages in the background instead."""
+    still dirty in cache forces synchronous invalidation; unlinking lets
+    the kernel drop the old inode's dirty pages in the background
+    instead."""
     try:
         os.unlink(name)
     except OSError:

@@ -136,8 +136,8 @@ struct RowCmp {
 // into equal-word runs on the next word. `key_bits` < 32 on the first word
 // when the caller's MSD bucket scatter already fixed the top byte. Small
 // slices fall back to std::sort (comparison wins under ~100 rows).
-// Replaces the per-bucket std::sort the round-4 profile showed spending
-// ~23n gather-compares per bucket (VERDICT round 4, next-round item 1b).
+// Replaces a per-bucket std::sort that profiled at ~23n gather-compares
+// per bucket.
 static void radix_rows(const uint32_t* words, const int32_t* lens,
                        int use_len, int64_t W, int32_t* perm,
                        int64_t lo, int64_t hi, int64_t w_idx, int key_bits,
@@ -1389,12 +1389,11 @@ void ngs_format_uniq_ofs(const uint8_t* data,
 }
 
 // ---------------------------------------------------------------------------
-// Host dedup sort (transfer-aware placement of ops/sortengine.dedup):
-// stable lexicographic argsort of packed u32 key rows (+ optional length
-// column as the least-significant key) with group-head marking. Used when
-// the host<->device link is thinner than shipping the key matrix is worth
-// (utils/linkprobe verdict) — the device LSD engine stays the default on
-// PCIe/ICI-attached chips. Strategy: 256-way MSD scatter on the top byte
+// Host dedup sort (host placement of ops/sortengine.dedup): stable
+// lexicographic argsort of packed u32 key rows (+ optional length column
+// as the least-significant key) with group-head marking. Used under
+// NGSTPU_LINK=host (utils/placement.py); the device LSD engine is the
+// default. Strategy: 256-way MSD scatter on the top byte
 // of word0 (order-preserving), then per-bucket std::sort pulled off an
 // atomic work queue; index tiebreak makes the whole thing stable.
 // ---------------------------------------------------------------------------
@@ -1822,9 +1821,8 @@ void ngs_byte_presence(const uint8_t* data, int64_t n, uint8_t* present,
 
 // ---------------------------------------------------------------------------
 // Host QC histogram: the reference hot loop (fastq_count.c:106-133
-// AssignQuality/count_read) as a threaded single pass. Used by the
-// transfer-aware placement when the host<->device link is too thin to ship
-// the quality matrix (the device kernels are the default path). Semantics
+// AssignQuality/count_read) as a threaded single pass. Used under
+// NGSTPU_LINK=host (the device kernels are the default path). Semantics
 // mirror ops/count.qc_histograms exactly: cycles beyond n_len-1 and quality
 // bytes >= n_qual are dropped; the length histogram clips to n_len-1.
 // hist_q: u64 [n_len, n_qual] (cycle-major); hist_len: u64 [n_len]; both

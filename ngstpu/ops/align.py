@@ -1,10 +1,10 @@
-"""Batched Smith-Waterman local alignment scoring on TPU.
+"""Batched Smith-Waterman local alignment scoring on the device.
 
 The reference vendors klib's SSE2 striped Smith-Waterman (klib/ksw.{h,c},
 SURVEY.md §1 "library headroom" — unused by the CLI tools but part of the
-intended capability envelope). The TPU formulation: affine-gap
+intended capability envelope). The device formulation: affine-gap
 Gotoh DP vectorized over a BATCH of read/target pairs — lax.scan walks
-query positions while [B, Lt] H/E/F lanes update on the VPU, so throughput
+query positions while [B, Lt] H/E/F lanes update in parallel, so throughput
 scales with batch width instead of SSE lanes.
 
 Scoring: match/mismatch constants (a, -b) like ksw_sse2's common use, gap
@@ -81,7 +81,7 @@ def sw_align_batch(query: jax.Array, qlens: jax.Array, target: jax.Array,
                    gap_open: int = 5, gap_extend: int = 2):
     """Full ksw_align surface, batched: best score + END POSITIONS.
 
-    Walks TARGET rows under lax.scan with query positions as VPU lanes
+    Walks TARGET rows under lax.scan with query positions as vector lanes
     (the transpose of sw_score_batch, matching ksw's orientation so end
     positions carry the same meaning as kswr_t — reference klib/ksw.h:63,
     ksw.c ksw_i16). Returns dict:

@@ -190,24 +190,15 @@ def merged_intervals(pos: np.ndarray, delta: np.ndarray,
     """Host wrapper: events -> (starts, ends, depths) of maximal
     constant-depth intervals with depth > 0 (the bedGraph rows).
     placement='host' pins the sweep to the native radix path (the
-    event-mode WGS pipeline, where shipping tens of MB of events to a
-    possibly-tunneled device can never beat a sub-second host sort)."""
+    event-mode WGS pipeline); otherwise utils/placement decides."""
     if len(pos) == 0:
         z = np.zeros(0, np.int64)
         return z, z, z
     n = len(pos)
     u_pos = u_depth = None
-    # placement: on a thin host<->device link the event round-trip costs
-    # more than a host sort+sweep (utils/linkprobe). A known host verdict
-    # applies at ANY size (small transfers are RTT-dominated on a tunnel);
-    # with no verdict yet, big inputs probe and small ones try the device
-    # (the realized pull bandwidth below then votes via note_transfer).
-    from ..utils.linkprobe import link_verdict, probe_link
+    from ..utils.placement import placement as placement_rule
 
-    verdict = placement or link_verdict()
-    if verdict is None and pos.nbytes >= (8 << 20):
-        verdict = probe_link(pos)
-    if verdict == "host":
+    if (placement or placement_rule()) == "host":
         from ..io.native import get_lib
 
         lib = get_lib()
@@ -231,15 +222,8 @@ def merged_intervals(pos: np.ndarray, delta: np.ndarray,
             delta = np.pad(delta, (0, e - n))
         s_pos, cum, is_last = sparse_pileup_sweep(
             jnp.asarray(pos), jnp.asarray(delta), jnp.int32(n))
-        import time as _time
-
-        t0 = _time.monotonic()
         s_pos, cum, is_last = (np.asarray(s_pos), np.asarray(cum),
                                np.asarray(is_last))
-        from ..utils.linkprobe import note_transfer
-
-        note_transfer(s_pos.nbytes + cum.nbytes + is_last.nbytes,
-                      _time.monotonic() - t0)
         u_pos = s_pos[is_last].astype(np.int64)
         u_depth = cum[is_last].astype(np.int64)
     return _intervals_from_sweep(u_pos, u_depth)

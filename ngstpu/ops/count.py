@@ -2,12 +2,12 @@
 
 Reimplements the hot loop of the reference `fastq_count` family
 (reference fastq_count.c:106-133 `count_read` / `AssignQuality`,
-fastq_count_kthread.c:126-147) as a TPU reduction: instead of scalar
+fastq_count_kthread.c:126-147) as a device reduction: instead of scalar
 `Quality[q][cycle]++` increments, each batch computes a fused
 compare-and-reduce over [B, L, NQ] (XLA fuses the one-hot compare into the
 sum, so nothing is materialized) yielding the [cycle, qual] count matrix.
-The length histogram is the same compare-reduce over 512 bins — no scatter
-anywhere (TPU scatters serialize).
+The length histogram is the same compare-reduce over 512 bins, with no
+scatter anywhere.
 
 Accumulation stays ON DEVICE across batches (donated buffers), so the host
 sees exactly one small [128, 512] transfer per file instead of one blocking
@@ -27,6 +27,8 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ..utils.placement import placement
 
 N_QUAL = 128
 N_CYCLE = 512
@@ -71,61 +73,12 @@ def _accumulate(total_q: jax.Array, total_len: jax.Array, qual: jax.Array,
     return total_q, total_len + lh
 
 
-@functools.partial(jax.jit, donate_argnums=(0, 1),
-                   static_argnames=("n_qual", "n_len"))
-def _accumulate_pallas(total_q: jax.Array, total_len: jax.Array,
-                       qual: jax.Array, lens: jax.Array, n_valid: jax.Array,
-                       n_qual: int = N_QUAL, n_len: int = N_CYCLE):
-    """TPU fast path: the Pallas histogram kernel (2.1x the XLA reduce)."""
-    from ..kernels.hist_pallas import qc_hist_pallas
-
-    ch = qc_hist_pallas(qual, lens, n_valid).T  # [L, n_qual]
-    B, L = qual.shape
-    col = jax.lax.broadcasted_iota(jnp.int32, (B, 1), 0)
-    rowmask = col < n_valid
-    lvals = jax.lax.broadcasted_iota(jnp.int32, (1, n_len), 1)
-    len_onehot = (jnp.clip(lens, 0, n_len - 1)[:, None] == lvals) & rowmask
-    lh = jnp.sum(len_onehot, axis=0, dtype=jnp.int32)
-    ncols = min(L, n_len)
-    total_q = total_q.at[:ncols, :].add(ch[:ncols, :])
-    return total_q, total_len + lh
-
-
-def _use_pallas(B: int) -> bool:
-    import os
-
-    if os.environ.get("NGSTPU_NO_PALLAS"):
-        return False
-    try:
-        return jax.devices()[0].platform == "tpu" and B % 512 == 0
-    except Exception:
-        return False
-
-
-def _qc_placement() -> str:
-    """NGSTPU_QC = device | host | auto (default auto).
-
-    auto: the device kernels are the default; if a timed device batch shows
-    the host->device link running below NGSTPU_QC_BW_MIN MB/s (default 1000
-    — i.e. a tunneled/remote chip, not PCIe/ICI), later batches accumulate
-    host-side with the native threaded histogram instead (which runs at
-    multiple GB/s, so it beats any thinner link). Both paths count exactly;
-    totals are merged, so placement never changes results.
-    """
-    import os
-
-    return os.environ.get("NGSTPU_QC", "auto")
-
-
-from ..utils.linkprobe import link_verdict as _link_verdict  # noqa: E402
-from ..utils.linkprobe import probe_link as _probe_link  # noqa: E402
-
-
 class QCAccumulator:
     """Accumulates batch histograms into the C-layout totals.
 
-    Device accumulation (XLA/Pallas kernels, donated buffers) is the default;
-    see _qc_placement for the transfer-aware host fallback.
+    Device accumulation (donated buffers) is the default; NGSTPU_LINK=host
+    accumulates with the native threaded histogram instead. Both count
+    exactly, so placement never changes results.
     """
 
     def __init__(self):
@@ -135,7 +88,7 @@ class QCAccumulator:
         self._host_len: np.ndarray | None = None
         self._acc_q: np.ndarray | None = None  # host-side partials
         self._acc_len: np.ndarray | None = None
-        self._mode = _qc_placement()
+        self._mode = placement()
         self._n_dev_batches = 0
 
     @classmethod
@@ -181,14 +134,7 @@ class QCAccumulator:
         callers need not copy into padded buffers)."""
         if n_valid is None:
             n_valid = qual.shape[0]
-        mode = self._mode
-        if mode == "auto":
-            # probe the link once per process with an ~8MB put; tiny
-            # batches are RTT-dominated and skip the probe (device path)
-            if _link_verdict() is None and qual.nbytes >= (8 << 20):
-                _probe_link(qual)
-            mode = _link_verdict() or "device"
-        if mode == "host" and self._add_host(qual, lens, n_valid):
+        if self._mode == "host" and self._add_host(qual, lens, n_valid):
             return
         self._host_q = None
         from ..utils.padding import bucket_rows, pad_rows
@@ -197,8 +143,7 @@ class QCAccumulator:
         if b != qual.shape[0]:
             qual = pad_rows(qual, b)
             lens = pad_rows(lens, b)
-        fn = _accumulate_pallas if _use_pallas(qual.shape[0]) else _accumulate
-        self._dev_q, self._dev_len = fn(
+        self._dev_q, self._dev_len = _accumulate(
             self._dev_q, self._dev_len, jnp.asarray(qual), jnp.asarray(lens),
             jnp.int32(n_valid))
         self._n_dev_batches += 1

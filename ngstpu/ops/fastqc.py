@@ -27,7 +27,8 @@ KMER_K = 7  # FastQC Kmer module word size
 def fastqc_stats(seq: jax.Array, qual: jax.Array, lens: jax.Array,
                  n_valid: jax.Array, n_qual: int = 128,
                  max_len: int = MAX_LEN):
-    """Returns dict: quality [L, n_qual], ntval [L, 5], gc_frac [B] f32,
+    """Returns dict: quality [L, n_qual], ntval [L, 5], gc_count [B] int32
+    (G/C bases per read; gc_fraction turns it into the GC fraction),
     len_hist [max_len] (bin i == length i+1)."""
     B, L = seq.shape
     col = jax.lax.broadcasted_iota(jnp.int32, (B, L), 1)
@@ -53,20 +54,31 @@ def fastqc_stats(seq: jax.Array, qual: jax.Array, lens: jax.Array,
                     dtype=jnp.int32)  # [L, 5]
 
     is_gc = ((seq == ord("G")) | (seq == ord("C"))) & mask  # uppercase only
-    gc_frac = jnp.sum(is_gc, axis=1).astype(jnp.float32) / \
-        jnp.maximum(lens, 1).astype(jnp.float32)
+    gc_count = jnp.sum(is_gc, axis=1, dtype=jnp.int32)
 
     lvals = jax.lax.broadcasted_iota(jnp.int32, (1, max_len), 1)
     len_onehot = ((lens - 1)[:, None] == lvals) & rowmask
     len_hist = jnp.sum(len_onehot, axis=0, dtype=jnp.int32)
 
-    return dict(quality=quality, ntval=ntval, gc_frac=gc_frac,
+    return dict(quality=quality, ntval=ntval, gc_count=gc_count,
                 len_hist=len_hist)
+
+
+def gc_fraction(gc_count: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Per-read GC fraction in float32 (reference Rgzfastq_uniq.c:53).
+
+    Divided on the host for both placements: numpy's float32 division is
+    correctly rounded, while the GPU's differs from it by 1 ulp in about a
+    quarter of the reads, enough to move a read across a GC histogram bin
+    edge."""
+    n = len(gc_count)
+    return (np.asarray(gc_count).astype(np.float32)
+            / np.maximum(np.asarray(lens[:n], np.int32), 1).astype(np.float32))
 
 
 def fastqc_stats_host(seq: np.ndarray, qual: np.ndarray, lens: np.ndarray,
                       n: int, n_qual: int = 128, max_len: int = MAX_LEN):
-    """Host placement of fastqc_stats for thin accelerator links: the
+    """Host placement of fastqc_stats (NGSTPU_LINK=host): the
     quality matrix comes from the threaded native per-cycle histogram
     (ngs_qc_hist) and the nucleotide/GC/length stats from chunked
     vectorized numpy — an original re-expression of the device kernel
@@ -93,7 +105,7 @@ def fastqc_stats_host(seq: np.ndarray, qual: np.ndarray, lens: np.ndarray,
                                           )[:n_qual]
 
     ntval = np.zeros((L, 5), np.int64)
-    gc_frac = np.zeros(n, np.float32)
+    gc_count = np.zeros(n, np.int32)
     for lo in range(0, n, 1 << 18):
         hi = min(lo + (1 << 18), n)
         s = seq[lo:hi]
@@ -104,8 +116,7 @@ def fastqc_stats_host(seq: np.ndarray, qual: np.ndarray, lens: np.ndarray,
                           (4, (s == ord("N")) | (s == ord(".")))):
             ntval[:, code] += (sel & m).sum(axis=0)
         is_gc = ((s == ord("G")) | (s == ord("C"))) & m
-        gc_frac[lo:hi] = is_gc.sum(axis=1).astype(np.float32) / \
-            np.maximum(lens32[lo:hi], 1).astype(np.float32)
+        gc_count[lo:hi] = is_gc.sum(axis=1)
     valid = np.zeros(L, np.int64)  # reads covering cycle k
     cnt = np.bincount(np.clip(lens32, 0, L), minlength=L + 1)
     valid[:] = n - np.cumsum(cnt)[:L]
@@ -114,7 +125,7 @@ def fastqc_stats_host(seq: np.ndarray, qual: np.ndarray, lens: np.ndarray,
     lh = np.zeros(max_len, np.int64)
     in_range = (lens32 >= 1) & (lens32 <= max_len)
     lh[:] = np.bincount(lens32[in_range] - 1, minlength=max_len)
-    return dict(quality=quality, ntval=ntval, gc_frac=gc_frac, len_hist=lh)
+    return dict(quality=quality, ntval=ntval, gc_count=gc_count, len_hist=lh)
 
 
 def truncated_key(seq: np.ndarray, lens: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -2,11 +2,9 @@
 
 These are the numpy/native halves of ops/sortengine.py used by the
 offset-indexed CLI fast paths, split out so a host-placed invocation
-(gzfastq_sort on a thin accelerator link) never pays the ~1.5s jax
-import at interpreter startup (the same motivation as tools/emitters.py;
-measured: the sort CLI spent more time importing jax than sorting 300K
-reads). sortengine re-exports every name here, so device-side callers
-keep their single import surface.
+(NGSTPU_LINK=host) never imports jax (the same motivation as
+tools/emitters.py). sortengine re-exports every name here, so
+device-side callers keep their single import surface.
 
 The rare no-native-lib fallbacks import sortengine lazily and do pay the
 jax cost — correctness first, startup speed where it matters.
@@ -124,7 +122,7 @@ def seq_words_host(padded_np: np.ndarray,
 
 def sort_perm_host(words_np: np.ndarray, lens_np,
                    length_first: bool) -> np.ndarray | None:
-    """Host placement of lex_argsort (thin accelerator link): native
+    """Host placement of lex_argsort (NGSTPU_LINK=host): native
     256-way bucket scatter + parallel per-bucket sort over the same
     collation words — identical order (length-first or lex-first, ties by
     original index: the stable order the reference's glibc qsort

@@ -3,7 +3,7 @@
 The reference builds per-chromosome hash tables of alignment-block starts and
 ends and sweeps their sorted union maintaining a running depth
 (reference bam2depth.c:86-110 fetch_func, 203-236 hash2BedGraph). The
-TPU-native formulation: scatter-add +1 at block starts and -1 at block ends
+device formulation: scatter-add +1 at block starts and -1 at block ends
 into a coordinate-indexed delta array, then depth(x) = prefix-sum of deltas —
 an O(n log n)-free, fully parallel scan that XLA maps to an efficient
 segmented cumsum. Windowed means are a second scatter-add of depth*bp into

@@ -10,7 +10,7 @@ Rgzfastq_uniq's matrices, fastq2twobit's packing):
 - per-cycle nucleotide composition [L, 5] (A/C/G/T/N, Rgzfastq_uniq.c:50-57)
 - 2-bit packed sequence [B, L//4] (twoBit.h:135-181)
 
-Fusing them means the seq/qual bytes are read from HBM once.
+Fusing them means the seq/qual bytes are read from device memory once.
 """
 
 from __future__ import annotations

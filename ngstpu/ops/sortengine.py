@@ -2,7 +2,7 @@
 
 The reference dedups with a Redis dict keyed by the exact sequence bytes
 (reference gzfastq_uniq.c:194-281) and sorts whole files with qsort on
-length-first comparators (reference gzfastq_sort.c:85-103). The TPU-native
+length-first comparators (reference gzfastq_sort.c:85-103). The device
 formulation: pack row bytes into big-endian uint32 words so lexicographic
 byte order == lexicographic word-tuple order, then one stable multi-operand
 lax.sort; duplicate groups are equal-neighbor segments of the sorted order,
@@ -49,9 +49,8 @@ def seq_words(padded_np: np.ndarray, dna3: bool | None = None) -> jax.Array:
 
     The packing happens on the host (native threaded path) when possible:
     transferring [B, ceil(L/10)] uint32 words instead of [B, L] raw bytes
-    cuts host->device traffic 2.5x — the dominant cost on PCIe-attached or
-    tunneled chips. `dna3` skips the alphabet re-scan when the caller has
-    already run is_dna3_compatible.
+    cuts host->device traffic 2.5x. `dna3` skips the alphabet re-scan when
+    the caller has already run is_dna3_compatible.
     """
     if dna3 is None:
         dna3 = is_dna3_compatible(padded_np, None)
@@ -134,13 +133,10 @@ def _order_u32(key: jax.Array) -> jax.Array:
 def _lsd_perm(keys_msf: list[jax.Array]) -> jax.Array:
     """Stable lexicographic argsort via LSD passes of 2-operand sorts.
 
-    keys_msf: key arrays in most-significant-first order. A wide
-    multi-operand lax.sort compiles pathologically on TPU (the comparator
-    explodes), and even an unrolled chain instantiates one sort lowering
-    per pass (~20s compile each). Running the passes under lax.scan makes
-    XLA compile a SINGLE (uint32 key, perm) sort reused for every pass —
-    compile time is flat in key width. Stability makes the original index
-    the implicit final tiebreaker.
+    keys_msf: key arrays in most-significant-first order. Running the
+    passes under lax.scan makes XLA compile a SINGLE (uint32 key, perm)
+    sort reused for every pass, so compile time is flat in key width.
+    Stability makes the original index the implicit final tiebreaker.
     """
     B = keys_msf[0].shape[0]
     ks = jnp.stack([_order_u32(k) for k in reversed(keys_msf)])  # [P, B]
@@ -226,8 +222,7 @@ def dedup_sorted(words: jax.Array, lens: jax.Array, sumq: jax.Array,
     is_head = jnp.concatenate([jnp.ones((1,), bool), ~same]) & s_valid
 
     # Counts/representatives fall out of head positions with O(groups) host
-    # arithmetic (see dedup_groups) — no device segment ops, whose TPU
-    # scatter lowering dominated the whole pipeline (~30s for 2M rows).
+    # arithmetic (see dedup_groups), so the device runs no segment ops.
     n_groups = jnp.sum(is_head.astype(jnp.int32))
     return dict(perm=perm, is_head=is_head, n_groups=n_groups)
 
@@ -290,14 +285,35 @@ def rep_counts_host(perm: np.ndarray, is_head: np.ndarray, n_valid: int,
     return rep_local, counts
 
 
-DEVICE_DEDUP_LIMIT = int(__import__("os").environ.get(
-    "NGSTPU_DEVICE_DEDUP_LIMIT", 4 << 30))
+# Device bytes the dedup sort may need per byte of key words. With up to
+# P = W + 3 LSD passes over B rows of W uint32 words, the device holds the
+# words (4BW bytes), the [P, B] key stack (4BP), the perm and the gathered
+# key of the current pass plus the sort's own copies of both (16B), and the
+# gathered sorted words (4BW): 12BW + 28B in all, 4x the words at W = 7.
+# A factor of 8 leaves room for XLA's temporaries and for fragmentation.
+DEDUP_HEADROOM = 8
+
+# Largest key set (bytes of words) that dedup_groups sorts on the device;
+# None derives it from the device's memory limit. Tests patch it to force
+# the host spill path.
+DEVICE_DEDUP_LIMIT: int | None = None
+
+
+def device_dedup_limit() -> int | None:
+    """DEVICE_DEDUP_LIMIT, else the device's bytes_limit / DEDUP_HEADROOM;
+    None (no limit) where the backend reports no memory limit (CPU)."""
+    if DEVICE_DEDUP_LIMIT is not None:
+        return DEVICE_DEDUP_LIMIT
+    stats = jax.devices()[0].memory_stats() or {}
+    if "bytes_limit" not in stats:
+        return None
+    return int(stats["bytes_limit"]) // DEDUP_HEADROOM
 
 
 def _dedup_host(words_np: np.ndarray, lens_np: np.ndarray,
                 sumq_np: np.ndarray, n_valid: int, length_first: bool):
-    """Host spill path for unique-sets beyond HBM (SURVEY.md §2b #4):
-    numpy lexsort with identical key order to the device path (the full
+    """Host spill path for unique-sets beyond device memory (SURVEY.md
+    §2b #4): numpy lexsort with identical key order to the device path (the full
     key set — pass-skipping flags only change which NO-OP keys the device
     chain omits, never the resulting order)."""
     # np.lexsort: LAST key is primary. Significance (most->least):
@@ -329,12 +345,18 @@ def dedup_groups(words: jax.Array, lens, sumq, n_valid: int,
       n_groups  int
     Groups are in key-ascending order; heads are the representatives.
 
-    Key sets larger than NGSTPU_DEVICE_DEDUP_LIMIT bytes (default 4GB)
-    spill to a host lexsort with identical ordering (the single-chip HBM
-    contingency; multi-chip should use parallel.dsort instead).
+    Key sets larger than device_dedup_limit() bytes spill to a host
+    lexsort with identical ordering and say so on stderr (the one-device
+    memory contingency; several devices should use parallel.dsort).
     """
     nbytes = words.size * 4 if hasattr(words, "size") else words.nbytes
-    if nbytes > DEVICE_DEDUP_LIMIT:
+    limit = device_dedup_limit()
+    if limit is not None and nbytes > limit:
+        import sys
+
+        sys.stderr.write(f"ngstpu: dedup keys of {nbytes} bytes exceed the "
+                         f"device limit of {limit} bytes; sorting on the "
+                         "host\n")
         perm, is_head = _dedup_host(np.asarray(words), np.asarray(lens),
                                     np.asarray(sumq), n_valid, length_first)
     else:

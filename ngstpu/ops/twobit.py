@@ -1,4 +1,4 @@
-"""2-bit DNA codec as TPU vector ops.
+"""2-bit DNA codec as device vector ops.
 
 Semantics of the reference twoBit.h codec (reference twoBit.h:54-71,135-181):
 T/t/U/u -> 0, C/c -> 1, A/a -> 2, G/g -> 3, anything else (incl. N) -> 0
@@ -8,7 +8,7 @@ Unpack maps 0..3 -> "TCAG" (reference twoBit.h:66-69 valToNt).
 
 Instead of per-base scalar shifts we compute the 2-bit code with a handful of
 vectorized byte compares and pack with a reshape + shift-or, which XLA fuses
-into a single VPU pass.
+into a single elementwise pass.
 """
 
 from __future__ import annotations

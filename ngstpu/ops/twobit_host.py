@@ -2,7 +2,7 @@
 
 The lookup tables and vectorized numpy pack/unpack live here so the CLI
 tools (fastq2twobit / twoBit2seq) can run their host-placement fast path
-without importing jax at startup (~1.8s/invocation on this box); the
+without importing jax at startup; the
 device kernels in ops/twobit.py re-export these for compatibility.
 Semantics: reference twoBit.h:54-71,135-181 — T/t/U/u->0, C/c->1,
 A/a->2, G/g->3, anything else (incl. N) -> 0 (N packs lossily to T);

@@ -2,14 +2,15 @@
 
 Replaces the reference's single-machine parallelism (SURVEY.md §2c):
 - per-file pthreads + mutex (fastq_count.c:213-231) -> batches sharded over
-  the mesh "dp" axis, per-shard histograms merged with lax.psum over ICI.
+  the mesh "dp" axis, per-shard histograms merged with lax.psum over the
+  device interconnect.
 - reduceStats map-reduce (fastq_count_kthread.c:180-210) -> the same psum.
 - pileup hash tables (bam2depth.c:86-110) -> sharded scatter-add of
   start/end deltas + psum, prefix-sum sweep replicated (coordinate axis
   sharding is this domain's sequence parallelism).
 
 All functions take a Mesh and use shard_map so the collective layout is
-explicit and compiled by XLA onto ICI.
+explicit and compiled by XLA into collectives (NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -19,6 +19,8 @@ would re-shard with a bigger factor on overflow).
 
 from __future__ import annotations
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,13 +43,15 @@ def _hash_rows(words: jax.Array, lens: jax.Array) -> jax.Array:
     return h
 
 
-def exchange_dedup(mesh: Mesh, pad_factor: float = 2.0):
+@partial(jax.jit, static_argnames=("mesh", "pad_factor"))
+def exchange_dedup(words, lens, sumq, gidx, valid, *, mesh: Mesh,
+                   pad_factor: float = 2.0):
     """Fused one-program distributed dedup: hash-bucket all_to_all exchange
     + per-shard stable LSD dedup sort, all inside ONE shard_map — shards
     dedup concurrently on device, and the host only ever sees the sorted
     result columns (no full-matrix round-trip between exchange and dedup).
 
-    Returns a jitted fn (words, lens, sumq, gidx, valid) ->
+    (words, lens, sumq, gidx, valid), sharded over 'dp' ->
     (s_words, s_lens, s_gidx, is_head, s_valid), each shard's slice sorted
     by (key words, len, -sumq, global idx) with invalid filler rows last —
     so each group's first row is the representative the single-chip path
@@ -111,7 +115,7 @@ def exchange_dedup(mesh: Mesh, pad_factor: float = 2.0):
                              P("dp")),
                    out_specs=(P("dp", None), P("dp"), P("dp"), P("dp"),
                               P("dp")))
-    return jax.jit(fn)
+    return fn(words, lens, sumq, gidx, valid)
 
 
 def _lex_gt_key(rows, key):
@@ -126,36 +130,16 @@ def _lex_gt_key(rows, key):
     return gt
 
 
-def distributed_sort(mesh: Mesh, words: np.ndarray, lens: np.ndarray,
-                     length_first: bool = True, pad_factor: float = 2.0
-                     ) -> np.ndarray:
-    """Splitter-based distributed ordered sort (sample sort) over 'dp'.
-
-    The multi-chip gzfastq_sort: per-shard LSD sort, regular sampling,
-    all_gather'd splitter selection, bucket all_to_all exchange, per-shard
-    re-sort — concatenated shards are globally sorted. Returns perm: the
-    ORIGINAL row indices in global key order, identical to the single-chip
-    lex_argsort(words, lens, length_first) (the original index rides the
-    key as the final column, so ties resolve exactly like the stable sort).
-    """
+@partial(jax.jit, static_argnames=("mesh", "length_first", "pad_factor"))
+def sample_sort(words, lens, gidx, valid, *, mesh: Mesh, length_first: bool,
+                pad_factor: float):
+    """distributed_sort's one device program: per-shard LSD sort, splitter
+    all_gather, bucket all_to_all, per-shard re-sort. Returns each shard's
+    (original row index, valid) in global key order."""
     from ..ops.sortengine import _lsd_perm
 
     n_dp = mesh.devices.size
-    B, W = words.shape
-    pad = (-B) % n_dp
-    if pad:
-        words = np.pad(words, ((0, pad), (0, 0)))
-        lens = np.pad(lens, (0, pad))
-    gidx = np.arange(len(lens), dtype=np.int32)
-    valid = gidx < B
-    # Round-robin re-shard: shard d gets rows d, d+n_dp, ... Contiguous
-    # sharding breaks the sample-sort cap invariant when keys correlate
-    # with input position (e.g. name sorts of sequentially named reads):
-    # one sender then routes its WHOLE slice to one bucket. Interleaving
-    # bounds every sender's per-bucket load at ~(global run)/n_dp. gidx
-    # still carries the original index, so the returned perm is unaffected.
-    rr = np.arange(len(lens)).reshape(-1, n_dp).T.reshape(-1)
-    words, lens, gidx, valid = words[rr], lens[rr], gidx[rr], valid[rr]
+    W = words.shape[1]
 
     def local(words, lens, gidx, valid):
         b = words.shape[0]
@@ -209,17 +193,50 @@ def distributed_sort(mesh: Mesh, words: np.ndarray, lens: np.ndarray,
         out_valid = jnp.take(rv, perm2)
         return out_idx.astype(jnp.int32), out_valid
 
-    fn = jax.jit(shard_map(
-        local, mesh=mesh,
-        in_specs=(P("dp", None), P("dp"), P("dp"), P("dp")),
-        out_specs=(P("dp"), P("dp"))))
+    fn = shard_map(local, mesh=mesh,
+                   in_specs=(P("dp", None), P("dp"), P("dp"), P("dp")),
+                   out_specs=(P("dp"), P("dp")))
+    return fn(words, lens, gidx, valid)
+
+
+def distributed_sort(mesh: Mesh, words: np.ndarray, lens: np.ndarray,
+                     length_first: bool = True, pad_factor: float = 2.0
+                     ) -> np.ndarray:
+    """Splitter-based distributed ordered sort (sample sort) over 'dp'.
+
+    The multi-chip gzfastq_sort: per-shard LSD sort, regular sampling,
+    all_gather'd splitter selection, bucket all_to_all exchange, per-shard
+    re-sort — concatenated shards are globally sorted. Returns perm: the
+    ORIGINAL row indices in global key order, identical to the single-chip
+    lex_argsort(words, lens, length_first) (the original index rides the
+    key as the final column, so ties resolve exactly like the stable sort).
+    """
+    n_dp = mesh.devices.size
+    B = words.shape[0]
+    pad = (-B) % n_dp
+    if pad:
+        words = np.pad(words, ((0, pad), (0, 0)))
+        lens = np.pad(lens, (0, pad))
+    gidx = np.arange(len(lens), dtype=np.int32)
+    valid = gidx < B
+    # Round-robin re-shard: shard d gets rows d, d+n_dp, ... Contiguous
+    # sharding breaks the sample-sort cap invariant when keys correlate
+    # with input position (e.g. name sorts of sequentially named reads):
+    # one sender then routes its WHOLE slice to one bucket. Interleaving
+    # bounds every sender's per-bucket load at ~(global run)/n_dp. gidx
+    # still carries the original index, so the returned perm is unaffected.
+    rr = np.arange(len(lens)).reshape(-1, n_dp).T.reshape(-1)
+    words, lens, gidx, valid = words[rr], lens[rr], gidx[rr], valid[rr]
+
     with mesh:
         sharding = NamedSharding(mesh, P("dp", None))
         shard1 = NamedSharding(mesh, P("dp"))
-        oi, ov = fn(jax.device_put(words, sharding),
-                    jax.device_put(lens.astype(np.int32), shard1),
-                    jax.device_put(gidx, shard1),
-                    jax.device_put(valid, shard1))
+        oi, ov = sample_sort(jax.device_put(words, sharding),
+                             jax.device_put(lens.astype(np.int32), shard1),
+                             jax.device_put(gidx, shard1),
+                             jax.device_put(valid, shard1), mesh=mesh,
+                             length_first=length_first,
+                             pad_factor=pad_factor)
         if any(d.process_index != jax.process_index()
                for d in mesh.devices.flat):
             # multi-controller: only local shards are addressable; tiled
@@ -264,12 +281,12 @@ def distributed_dedup(mesh: Mesh, words: np.ndarray, lens: np.ndarray,
     valid = np.arange(len(lens)) < B
     gidx = np.arange(len(lens), dtype=np.int32)
 
-    fused = exchange_dedup(mesh, pad_factor)
     with mesh:
         args = [jax.device_put(a, NamedSharding(mesh, P("dp", *([None] * (a.ndim - 1)))))
                 for a in (words, lens.astype(np.int32),
                           sumq.astype(np.uint32), gidx, valid)]
-        sw, sl, si, ih, sv = fused(*args)
+        sw, sl, si, ih, sv = exchange_dedup(*args, mesh=mesh,
+                                            pad_factor=pad_factor)
 
         multi = any(d.process_index != jax.process_index()
                     for d in mesh.devices.flat)

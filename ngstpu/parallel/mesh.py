@@ -1,8 +1,8 @@
 """Device mesh construction for ngstpu's scale-out model.
 
 The reference has no distributed layer at all (SURVEY.md §2c): its
-parallelism is thread-per-file + a work-stealing kt_for. The TPU-native
-design replaces that with SPMD over a jax.sharding.Mesh:
+parallelism is thread-per-file + a work-stealing kt_for. This design
+replaces that with SPMD over a jax.sharding.Mesh:
 
 - axis "dp": data parallelism over read batches / file shards — the analog
   of thread-per-file (reference fastq_count.c:213-231). Histograms and
@@ -25,7 +25,8 @@ def make_mesh(n_devices: int | None = None, coord: int | None = None) -> Mesh:
     devs = jax.devices()
     n = len(devs) if n_devices is None else n_devices
     if n > len(devs):
-        raise ValueError(f"requested {n} devices, have {len(devs)}")
+        raise ValueError(f"requested a {n}-device mesh, but only "
+                         f"{len(devs)} devices are present")
     devs = devs[:n]
     if coord is not None:
         if n % coord:

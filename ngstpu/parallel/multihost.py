@@ -1,7 +1,7 @@
 """Multi-host scale-out orchestration.
 
 The reference's only scale-out is thread-per-file on one machine
-(reference fastq_count.c:213-231). The TPU-native model (SURVEY.md §2c):
+(reference fastq_count.c:213-231). The scale-out model here (SURVEY.md §2c):
 
 - files/chunks are assigned to hosts deterministically (round-robin by
   size-descending order, so shards balance without coordination — no RPC,
@@ -9,13 +9,14 @@ The reference's only scale-out is thread-per-file on one machine
 - each host processes its shard locally (host I/O + its chips);
 - fixed-shape statistics (the 128x512 quality matrix, length histograms,
   counters) merge with jax.lax.psum over the global mesh — the
-  reduceStats map-reduce (fastq_count_kthread.c:180-210) as an ICI/DCN
-  collective;
+  reduceStats map-reduce (fastq_count_kthread.c:180-210) as a
+  cross-device collective;
 - order-sensitive outputs are written per-shard and concatenated by rank
   order (deterministic writer).
 
-Initialize with `jax.distributed.initialize()` (env-driven) before use on
-a real multi-host slice; on one host everything degrades to the local path.
+Initialize with `jax.distributed.initialize(coordinator_address,
+num_processes, process_id)` before use on several hosts; on one host
+everything degrades to the local path.
 """
 
 from __future__ import annotations

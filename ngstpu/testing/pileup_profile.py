@@ -2,11 +2,10 @@
 
 Runs each stage of the production path in isolation over a BAM fixture and
 records wall + process-CPU seconds (process_time counts every thread, so a
-native parallel stage reports its full core-seconds). This is the recorded
-evidence for the inflate-floor analysis the round-3 verdict demanded: on a
-2-core host, wall-clock cannot beat (total core-seconds)/2, and inflate_1t
-is the irreducible per-core cost of BGZF decode (libdeflate raw-DEFLATE,
-the fastest decoder on this image).
+native parallel stage reports its full core-seconds). It shows the
+inflate floor: on an N-core host, wall-clock cannot beat (total
+core-seconds)/N, and inflate_1t is the irreducible per-core cost of BGZF
+decode (libdeflate raw-DEFLATE).
 
 The reference pays the same decode through zlib inside libbam
 (reference bam2depth.c:308 samopen + bgzf reads), single-threaded.

@@ -152,8 +152,8 @@ def _emit_loop(header, rows_and_bins, bedgraph, depth_out, wig_out,
     from .emitters import _PageRecycler
 
     # the bedGraph is the big output (hundreds of MB on WGS) and its
-    # page-cache allocation is the dominant non-decode cost in the wall
-    # phases of this host — adaptive recycling with a small window (the
+    # page-cache allocation was the dominant non-decode cost on the VM
+    # this was tuned on — adaptive recycling with a small window (the
     # probe skips it when pages are cheap)
     rec = (None if bedgraph is sys.stdout
            else _PageRecycler(bedgraph.buffer, window=96 << 20,

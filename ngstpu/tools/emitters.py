@@ -1,7 +1,7 @@
 """Writer/sort-dispatch machinery shared by the offset-indexed fast
-paths (pipeline, gzfastq_uniq, gzfastq_sort) — deliberately jax-free at
-import time so host-placement CLI runs skip the ~1.8s interpreter-startup
-device registration entirely (jax loads lazily inside the device branch).
+paths (pipeline, gzfastq_uniq, gzfastq_sort). Jax-free at import time:
+jax loads lazily inside the device branch, so a host-placement run never
+starts a JAX client.
 
 The ring writer is the output half of the reference's kt_pipeline overlap
 (reference klib/kthread.c:83-143): formatting chunk k+1 overlaps writing
@@ -23,6 +23,20 @@ CHUNK_RECORDS = 1 << 19
 _SFR_WAIT_BEFORE, _SFR_WRITE, _SFR_WAIT_AFTER = 1, 2, 4
 
 
+def _write_all(f, mv) -> None:
+    """Write all of `mv` to an unbuffered (raw) file, whose write() may
+    write less than asked: a single write() stops at about 2 GiB, and a
+    filling disk returns a short count before it raises ENOSPC."""
+    mv = memoryview(mv).cast("B")
+    done = 0
+    while done < len(mv):
+        k = f.write(mv[done:])
+        if not k:
+            raise OSError(f"write to {getattr(f, 'name', f)} made no "
+                          "progress")
+        done += k
+
+
 def _libc_sync_file_range():
     import ctypes
 
@@ -39,22 +53,21 @@ def _libc_sync_file_range():
 class _PageRecycler:
     """Windowed writeback + page-drop BEHIND the write cursor.
 
-    This VM's dominant output cost is allocating NEW page-cache pages
-    (first-touch of guest-physical memory measured 30MB/s..3GB/s by host
-    phase); steadily recycling our own just-written pages keeps the
-    working set to one window and measured 2-5x faster sequential output
-    than letting 3.4GB of dirty cache accumulate (scripts experiment,
-    round 5). Protocol per wrote(upto): start async writeback for the
-    fresh bytes, then WAIT + POSIX_FADV_DONTNEED on everything more than
+    On the VM this was tuned on, the dominant output cost was allocating
+    NEW page-cache pages (guest-physical first touch); steadily recycling
+    our own just-written pages keeps the working set to one window, which
+    wrote faster there than letting GBs of dirty cache accumulate. Not
+    re-measured on the H100 host (ROADMAP queue 3). Protocol per
+    wrote(upto): start async writeback for the fresh bytes, then WAIT + POSIX_FADV_DONTNEED on everything more than
     `window` behind — dropped pages return to the guest free pool and the
     next chunk's allocation reuses them. NGSTPU_WRITE_RECYCLE=0 disables.
     """
 
     WINDOW = 256 << 20
     # engage only past this many bytes written: sub-GB outputs fit the
-    # warm page pool and the writeback waits would be pure overhead
-    # (measured ~0.3-0.5s on the 2M-read composite); multi-GB outputs
-    # (the 10M-read tools) are where the allocation wall lives
+    # warm page pool and the writeback waits would be pure overhead;
+    # multi-GB outputs (the 10M-read tools) are where the allocation
+    # wall lives
     START = 1 << 30
 
     _sfr = None
@@ -130,7 +143,7 @@ class _RecyclingSink:
         import time
 
         t0 = time.monotonic()
-        self._f.write(mv)
+        _write_all(self._f, mv)
         self._rec.note_write(len(mv), time.monotonic() - t0)
         self._off += len(mv)
         self._rec.wrote(self._off)
@@ -243,7 +256,7 @@ class _CloningSink:
             if not chunk:
                 raise OSError("clone source short read")
             self._f2.seek(off + done)
-            self._f2.write(chunk)
+            _write_all(self._f2, chunk)
             done += len(chunk)
 
     def _clone_loop(self) -> None:
@@ -270,7 +283,7 @@ class _CloningSink:
             raise err
         n = len(mv)
         t0 = time.monotonic()
-        self._f1.write(mv)
+        _write_all(self._f1, mv)
         dt = time.monotonic() - t0
         self._rec1.note_write(n, dt)
         self._rec2.note_write(n, dt)  # same phase, same wall
@@ -294,9 +307,9 @@ class _CloningSink:
 
 def _fresh(path: str) -> str:
     """Unlink `path` before (re)creating it: truncate-open of a file whose
-    pages are still dirty in cache forces synchronous invalidation (up to
-    ~0.7s per 300MB output measured here); unlinking instead lets the
-    kernel drop the old inode's dirty pages in the background."""
+    pages are still dirty in cache forces synchronous invalidation;
+    unlinking instead lets the kernel drop the old inode's dirty pages in
+    the background."""
     try:
         os.unlink(path)
     except OSError:
@@ -313,7 +326,7 @@ def _partition_bounds(bucket_hist: np.ndarray, n_parts: int) -> np.ndarray:
 
 def _sort_host_async(words_all: np.ndarray, key_lens: np.ndarray,
                      sumq_all: np.ndarray, const_len: bool):
-    """Host placement of the dedup sort (thin accelerator link): ONE native
+    """Host placement of the dedup sort (NGSTPU_LINK=host): ONE native
     call fuses the bucketed parallel sort with group/representative/count
     extraction (each bucket's groups are scanned while its rows are still
     cache-hot). The call runs on a background thread STARTED NOW (ctypes

@@ -107,12 +107,12 @@ def main(argv: list[str]) -> int:
         return 0
     batch = read_fastq_file(infile, need=("seq",))
     timer.log("done read file at %.3f s\n")
-    from ..utils.linkprobe import link_verdict
+    from ..utils.placement import placement
 
     seq = np.ascontiguousarray(batch.seq)
     if seq.shape[1] % 4:
         seq = np.pad(seq, ((0, 0), (0, 4 - seq.shape[1] % 4)))
-    if link_verdict() == "device" and seq.nbytes >= (8 << 20):
+    if placement() == "device" and seq.nbytes >= (8 << 20):
         import jax.numpy as jnp
 
         from ..ops.twobit import pack2bit

@@ -1,4 +1,4 @@
-"""gzfastq_sort: whole-file FASTQ sort by sequence or name on the TPU.
+"""gzfastq_sort: whole-file FASTQ sort by sequence or name on the device.
 
 Parity target: reference gzfastq_sort.c. Comparators are length-first, then
 strcmp (comp_name :85-93, comp_seq :95-103); glibc qsort is stable
@@ -17,12 +17,11 @@ import numpy as np
 
 from ..io.fastq import format_fastq, read_fastq_file
 from ..io.stream import open_output, with_suffix
+from ..utils.placement import placement
 from ..utils.timing import StageTimer
 
-# jax / the device sort engine / fill_padded import lazily inside the
-# generic-path functions — the offset-indexed host fast path never touches
-# the device, and interpreter-startup jax registration costs ~1.8s per CLI
-# run on this box.
+# jax and the device sort engine import lazily (inside the device
+# branches), so a host-placement run never starts a JAX client.
 
 OUT_CHUNK = 1 << 20
 
@@ -47,18 +46,13 @@ def emit_permuted(out, batch, perm: np.ndarray) -> None:
 
 
 def _mesh_perm(words_host: np.ndarray, lens: np.ndarray,
-               mesh_n: int) -> np.ndarray | None:
-    """Distributed sample-sort when -m requests a mesh (parallel/dsort.py);
-    None -> caller runs the single-chip path."""
-    import jax
-
+               mesh_n: int) -> np.ndarray:
+    """Distributed sample-sort over an `mesh_n`-device mesh
+    (parallel/dsort.py); raises when -m exceeds the devices present."""
     from ..parallel.dsort import distributed_sort
     from ..parallel.mesh import make_mesh
 
-    n = min(mesh_n, len(jax.devices()))
-    if n <= 1:
-        return None
-    return distributed_sort(make_mesh(n), words_host,
+    return distributed_sort(make_mesh(mesh_n), words_host,
                             np.asarray(lens, np.int32), length_first=True)
 
 
@@ -66,9 +60,9 @@ def _run_sort_fast(infile: str, outfile: str, by_name: bool,
                    timer: StageTimer) -> bool:
     """Offset-indexed whole-file sort (round-4 fast path): mmap + index,
     collation words packed chunk-wise straight from the offsets (the
-    padded byte matrix never materializes whole), placement-aware
-    permutation (native 256-bucket sort on a thin link, device LSD
-    otherwise), and records emitted from the raw bytes in permuted order
+    padded byte matrix never materializes whole), the device LSD
+    permutation (the native 256-bucket sort under NGSTPU_LINK=host), and
+    records emitted from the raw bytes in permuted order
     (io/fastindex.take_text) with a ring writer overlapping format and
     file writes. Roughly halves both the wall time and the peak RSS of
     the generic padded-batch path at the 10M-read scale (the reference
@@ -81,7 +75,6 @@ def _run_sort_fast(infile: str, outfile: str, by_name: bool,
     from ..io.native import get_lib
     from ..ops.hostsort import sort_perm_host
     from ..utils.bufpool import get_buffer, get_matrix
-    from ..utils.linkprobe import link_verdict, probe_link
     from .emitters import _RingWriter, _fresh
 
     if (not outfile or outfile.startswith("-")
@@ -129,9 +122,7 @@ def _run_sort_fast(infile: str, outfile: str, by_name: bool,
                                 klens[lo:hi], hi - lo, lmax4, padded, 0)
             words[lo:hi] = padded.view(">u4")
 
-    v = link_verdict()
-    if v is None and words.nbytes >= (8 << 20):
-        v = probe_link(words)
+    v = placement()
     if v == "host":
         # constant-length keys make the length-first comparator vacuous;
         # dropping it lets the host engine bucket by the leading packed
@@ -173,7 +164,7 @@ def _run_sort_fast(infile: str, outfile: str, by_name: bool,
             w.close()
     timer.log("done write file at %.3f s\n")
     ru.checkpoint("emit_write")
-    ru.dump(tool="gzfastq_sort", reads=B, placement=v or "device")
+    ru.dump(tool="gzfastq_sort", reads=B, placement=v)
     return True
 
 
@@ -251,26 +242,12 @@ def _stream_sorted_emit(ix, words: np.ndarray, outfile: str, by_name: bool,
     ru.dump(tool="gzfastq_sort", reads=B, placement="host")
 
 
-def _link_placement(operand: np.ndarray) -> str | None:
-    """Transfer-aware placement for the whole-file sort (same policy as
-    gzfastq_uniq's dedup sort): a known verdict applies at any size; an
-    unknown link only probes for operands big enough to matter."""
-    from ..utils.linkprobe import link_verdict, probe_link
-
-    v = link_verdict()
-    if v is None and operand.nbytes >= (8 << 20):
-        v = probe_link(operand)
-    return v
-
-
 def sort_perm_by_seq(batch, mesh_n: int = 0) -> np.ndarray:
     if mesh_n > 1:
         from ..ops.hostsort import seq_words_host
 
-        perm = _mesh_perm(seq_words_host(batch.seq), batch.lens, mesh_n)
-        if perm is not None:
-            return perm
-    if _link_placement(batch.seq) == "host":
+        return _mesh_perm(seq_words_host(batch.seq), batch.lens, mesh_n)
+    if placement() == "host":
         from ..ops.hostsort import seq_words_host, sort_perm_host
 
         perm = sort_perm_host(seq_words_host(batch.seq), batch.lens, True)
@@ -294,10 +271,9 @@ def sort_perm_by_name(batch, mesh_n: int = 0) -> np.ndarray:
     if mesh_n > 1:
         from ..ops.hostsort import bytes_to_words_host
 
-        perm = _mesh_perm(bytes_to_words_host(padded), batch.name_lens, mesh_n)
-        if perm is not None:
-            return perm
-    if _link_placement(padded) == "host":
+        return _mesh_perm(bytes_to_words_host(padded), batch.name_lens,
+                          mesh_n)
+    if placement() == "host":
         from ..ops.hostsort import bytes_to_words_host, sort_perm_host
 
         perm = sort_perm_host(bytes_to_words_host(padded), batch.name_lens,

@@ -3,7 +3,7 @@
 Capability equivalent of the reference's three ordered-container demos —
 kbtree_kseq.c (B-tree dedup, in-order dump), skiplist_kseq.c (rank-skiplist:
 `skiplist_key_rank` / `skiplist_search_by_rank`, :96-107) and map_kseq.cpp
-(std::map) — expressed the TPU way: one device sort; ordered iteration is
+(std::map) — expressed as one device sort; ordered iteration is
 the sorted order, rank(key) and select(rank) are index arithmetic on the
 sorted unique set (SURVEY.md §2b item 5).
 

@@ -3,7 +3,7 @@
 The reference runs fastq_count, fastq_trim and gzfastq_uniq as three
 processes, each re-reading (and re-decompressing) the file
 (fastq_count.c:106-133, fastq_trim.c:67-108, gzfastq_uniq.c:194-281). The
-TPU-native pipeline reads once and runs the QC histogram, the trim slice
+fused pipeline reads once and runs the QC histogram, the trim slice
 and the dedup sort as one overlapped schedule — outputs are identical to
 running the three tools separately.
 
@@ -15,6 +15,9 @@ thread; the dedup runs as P key-range partitions on the device so the
 emit of partition k overlaps the sort of partition k+1; the duplicate
 _sortKeyUniq.fq output is a kernel-side copy_file_range clone. The generic
 path (stdin/gzip/wide alphabets) is the chunked padded-batch pipeline.
+NGSTPU_LINK=host runs the fast path's dedup sort and the chunked path's
+QC histogram on their host engines instead (utils/placement.py); the
+outputs are the same bytes.
 
 Usage: ngstpu pipeline -i in.fq -o prefix [-s start] [-e end]
 Outputs: {prefix}.count.tsv, {prefix}.trim.fastq, {prefix}_uniq.fq,
@@ -67,12 +70,9 @@ def run_fast(fused, infile: str, prefix: str, start: int, end: int,
     # device sorts (or the host sort thread) run concurrently with the
     # whole trim-assembly loop below instead of starting after it
     const_len = B > 0 and int(ix.seq_len.min()) == lmax
-    from ..utils.linkprobe import link_verdict, probe_link
+    from ..utils.placement import placement
 
-    verdict = link_verdict()
-    if verdict is None:
-        verdict = probe_link(words_all)
-    if verdict == "host":
+    if placement() == "host":
         rep_groups = _sort_host_async(words_all, ix.seq_len, sumq_all,
                                       const_len)
     else:

@@ -1,12 +1,12 @@
-"""Warm-process server: run tools without paying JAX/TPU startup per call.
+"""Warm-process server: run tools without paying JAX start-up per call.
 
-Compiling the device programs (sort chains, Pallas kernels) costs seconds
-to minutes per process on TPU; production pipelines invoke tools thousands
-of times. `ngstpu serve` keeps one warm process holding the TPU client and
-every compiled program; subsequent CLI invocations with NGSTPU_SERVER set
-(or `ngstpu client ...`) route over a unix socket and reuse the warm
-state — a tool that cold-starts in minutes answers in milliseconds-to-
-seconds warm.
+Starting a JAX client and compiling the device programs (the LSD sort
+chains) is paid by every fresh process; production pipelines invoke tools
+thousands of times. `ngstpu serve` keeps one warm process holding the
+device client and every compiled program; subsequent CLI invocations
+with NGSTPU_SERVER set (or `ngstpu client ...`) route over a unix socket
+and reuse the warm state — a tool that cold-starts in seconds answers in
+milliseconds-to-seconds warm.
 
 Protocol: one JSON line request {"tool", "argv", "cwd"} -> one JSON line
 response {"rc", "stdout" (base64), "stderr" (base64)}. Requests are

@@ -46,9 +46,9 @@ def main(argv: list[str]) -> int:
         payload = np.frombuffer(data, dtype=np.uint8, offset=2)
         n_rec = len(payload) // packed_len if packed_len else 0
         rows = payload[: n_rec * packed_len].reshape(n_rec, packed_len)
-        from ..utils.linkprobe import link_verdict
+        from ..utils.placement import placement
 
-        if link_verdict() == "device" and rows.nbytes >= (8 << 20):
+        if placement() == "device" and rows.nbytes >= (8 << 20):
             import jax.numpy as jnp
 
             from ..ops.twobit import unpack2bit

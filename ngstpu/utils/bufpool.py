@@ -1,9 +1,8 @@
 """Persistent hugepage-backed buffer pool.
 
-This VM's anonymous-page fault path is pathologically slow and *variable*
-(measured 25MB/s..8GB/s first-touch within one session), so any stage that
-allocates a few hundred MB per run can eat seconds of pure fault time on a
-bad draw. The pool mmaps each named buffer once, `madvise(MADV_HUGEPAGE)`s
+On the VM this was tuned on, the anonymous-page fault path was slow and
+*variable*, so any stage that allocates a few hundred MB per run could
+eat seconds of pure fault time on a bad draw. The pool mmaps each named buffer once, `madvise(MADV_HUGEPAGE)`s
 it (512x fewer faults), pre-touches it at acquisition, and hands out numpy
 views for the rest of the process — repeated pipeline runs (multi-lane
 mode, the warm `serve` daemon, benchmarks) never fault again.
@@ -11,8 +10,7 @@ mode, the warm `serve` daemon, benchmarks) never fault again.
 When /dev/shm is usable the buffers are additionally backed by tmpfs
 files that OUTLIVE the process (NGSTPU_SHM_POOL=0 opts out): a fresh CLI
 invocation re-maps the previous run's still-resident pages instead of
-re-paying the first-touch allocation wall (~0.1s/512MB warm vs seconds
-on a bad phase — measured on this box). One process at a time owns the
+re-paying the first-touch allocation wall. One process at a time owns the
 on-disk pool via a flock; concurrent runs fall back to private anonymous
 maps. Contents are never preserved across runs (same contract as
 same-process reuse: callers treat acquired buffers as uninitialized).

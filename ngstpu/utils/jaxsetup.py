@@ -1,9 +1,10 @@
 """Process-level JAX setup for CLI tools.
 
 Every `ngstpu` CLI invocation is a fresh process; without a persistent
-compilation cache each run would pay full XLA compile latency (tens of
-seconds on TPU). We enable jax's persistent cache under
-~/.cache/ngstpu/jax (override with NGSTPU_JAX_CACHE_DIR).
+compilation cache each run would pay full XLA compile latency. The cache is
+JAX_COMPILATION_CACHE_DIR where that is set, and otherwise the fixed
+`<checkout>/.cache/jax` (a fixed path, because the path is part of the
+cache's key).
 """
 
 from __future__ import annotations
@@ -11,7 +12,16 @@ from __future__ import annotations
 import os
 import pathlib
 
+DEFAULT_CACHE_DIR = (pathlib.Path(__file__).resolve().parents[2]
+                     / ".cache" / "jax")
+
 _done = False
+
+
+def compile_cache_dir() -> str:
+    """JAX_COMPILATION_CACHE_DIR if set, else `<checkout>/.cache/jax`."""
+    return (os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or str(DEFAULT_CACHE_DIR))
 
 
 def setup_jax_cache() -> None:
@@ -19,18 +29,15 @@ def setup_jax_cache() -> None:
     if _done:
         return
     _done = True
-    cache = os.environ.get("NGSTPU_JAX_CACHE_DIR")
-    if cache is None:
-        cache = str(pathlib.Path.home() / ".cache" / "ngstpu" / "jax")
+    cache = compile_cache_dir()
     pathlib.Path(cache).mkdir(parents=True, exist_ok=True)
     import sys
 
     if "jax" not in sys.modules:
         # do NOT import jax just to configure it: host-placement CLI runs
-        # never load it, and a cold jax import costs ~1.5s per invocation
-        # on this box. jax reads these env vars at import time, so a later
-        # lazy import still lands in the persistent cache.
-        os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", cache)
+        # never load it. jax reads these env vars at import time, so a
+        # later lazy import still lands in the persistent cache.
+        os.environ["JAX_COMPILATION_CACHE_DIR"] = cache
         os.environ.setdefault(
             "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "0.5")
         return

@@ -2,10 +2,10 @@
 
 Large numpy/C++ buffers (padded batches, format blobs) default to
 mmap-backed malloc chunks, which glibc munmaps on free — so EVERY batch
-re-pays first-touch page faults. On VMs with a slow fault path (measured
-~25MB/s first-touch vs 3-9GB/s warm on this dev host) that dominates the
-host pipeline. Routing big allocations to the brk heap and disabling trim
-makes the process fault each page once and reuse it forever:
+re-pays first-touch page faults, which dominate the host pipeline on VMs
+with a slow fault path. Routing big allocations to the brk heap and
+disabling trim makes the process fault each page once and reuse it
+forever:
 
     mallopt(M_MMAP_MAX, 0)             never satisfy malloc via mmap
     mallopt(M_TRIM_THRESHOLD, MAX)     never return heap to the kernel

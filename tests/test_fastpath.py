@@ -488,3 +488,31 @@ def test_gz_false_boundary_repair(tmp_path):
     out = _inflate_gz_members_parallel(lib, raw, "t.repair")
     assert out is not None, "repair loop must keep the parallel path"
     assert out.tobytes() == part0 + text1 + part2
+
+
+def test_write_all_finishes_short_raw_writes():
+    """Raw (unbuffered) files may write less than asked; the emit sinks
+    must keep writing until every byte is out, and fail loudly when a
+    write makes no progress."""
+    import io
+
+    from ngstpu.tools.emitters import _write_all
+
+    class _Trickle(io.RawIOBase):
+        def __init__(self, step):
+            self.buf, self.step = bytearray(), step
+
+        def writable(self):
+            return True
+
+        def write(self, b):
+            k = min(self.step, len(b))
+            self.buf += bytes(b[:k])
+            return k
+
+    data = np.arange(1000, dtype=np.uint32).view(np.uint8)
+    f = _Trickle(7)
+    _write_all(f, data)
+    assert bytes(f.buf) == data.tobytes()
+    with pytest.raises(OSError, match="no progress"):
+        _write_all(_Trickle(0), data)

@@ -75,7 +75,7 @@ def test_parity_output_file(tmp_path):
 
 
 def test_host_qc_placement_matches_device(monkeypatch):
-    """The transfer-aware host histogram (ngs_qc_hist) must count exactly
+    """The host-placement histogram (ngs_qc_hist) must count exactly
     like the device kernels, including >=128 quality-byte drops, length
     clipping at 512 cycles, and mixed device+host accumulation."""
     from ngstpu.io import native
@@ -90,16 +90,16 @@ def test_host_qc_placement_matches_device(monkeypatch):
     lens = rng.integers(0, L + 1, B).astype(np.int32)
     qual = np.where(np.arange(L)[None, :] < lens[:, None], qual, 0).astype(np.uint8)
 
-    monkeypatch.setenv("NGSTPU_QC", "device")
+    monkeypatch.delenv("NGSTPU_LINK", raising=False)
     a = QCAccumulator()
     a.add_batch(qual, lens)
-    monkeypatch.setenv("NGSTPU_QC", "host")
+    monkeypatch.setenv("NGSTPU_LINK", "host")
     b = QCAccumulator()
     b.add_batch(qual, lens)
     assert np.array_equal(a.quality, b.quality)
     assert np.array_equal(a.seq_len, b.seq_len)
 
-    monkeypatch.setenv("NGSTPU_QC", "device")
+    monkeypatch.delenv("NGSTPU_LINK")
     c = QCAccumulator()
     c.add_batch(qual[:2000], lens[:2000])
     c._mode = "host"

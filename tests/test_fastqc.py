@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 
 from ngstpu.ops.fastqc import (MAX_LEN, fastqc_stats, fastqc_stats_numpy,
-                               truncated_key)
+                               gc_fraction, truncated_key)
 from ngstpu.testing.fixtures import random_fastq
 from ngstpu.tools.cli import main as cli_main
 
@@ -28,7 +28,8 @@ def test_stats_vs_numpy_oracle(tmp_path):
     assert (np.asarray(res["quality"])[:L].T == q_ref[:, :L]).all()
     assert (np.asarray(res["ntval"])[:L].T == nt_ref[:, :L]).all()
     assert (np.asarray(res["len_hist"]) == len_ref).all()
-    assert np.allclose(np.asarray(res["gc_frac"])[:b.n], gc_ref, atol=1e-6)
+    gc = gc_fraction(np.asarray(res["gc_count"])[:b.n], b.lens)
+    assert np.allclose(gc, gc_ref, atol=1e-6)
 
 
 def test_truncated_key_rule():
@@ -239,8 +240,8 @@ def test_fastqc_stats_host_matches_device():
         host = fastqc_stats_host(seq, qual, lens, B)
         for k in ("quality", "ntval", "len_hist"):
             assert np.array_equal(np.asarray(dev[k]), host[k]), (trial, k)
-        assert np.array_equal(np.asarray(dev["gc_frac"]),
-                              host["gc_frac"]), trial
+        assert np.array_equal(np.asarray(dev["gc_count"]),
+                              host["gc_count"]), trial
 
 
 def test_fastqc_host_modules_match_device():
@@ -337,58 +338,3 @@ def test_dedup_host_native_libless_matches(monkeypatch):
     if native is not None:
         assert np.array_equal(native[0], libless[0])
         assert np.array_equal(native[1], libless[1])
-
-
-def test_linkprobe_cache_is_backend_keyed(tmp_path, monkeypatch):
-    import json
-    import time as _t
-
-    from ngstpu.utils import linkprobe as lp
-
-    monkeypatch.setattr(lp, "_cache_path", lambda: tmp_path / "lp.json")
-    lp._store_verdict("host")
-    assert lp._cached_verdict() == "host"
-    # a different backend's verdict must not apply
-    d = json.loads((tmp_path / "lp.json").read_text())
-    d["backend"] = "definitely-not-this-one"
-    (tmp_path / "lp.json").write_text(json.dumps(d))
-    assert lp._cached_verdict() is None
-    # malformed cache contents never crash
-    for junk in ("42", "[1,2]", '{"v": "host"}', '{"v": 3, "ts": null}', ""):
-        (tmp_path / "lp.json").write_text(junk)
-        assert lp._cached_verdict() is None
-
-
-def test_linkprobe_persists_past_burst_gaps(tmp_path, monkeypatch):
-    """A verdict older than the old 60s TTL but inside NGSTPU_LINK_TTL
-    must be served from cache WITHOUT spawning a probe subprocess (the
-    round-3 verdict item 5: spaced CLI bursts stop re-paying a subprocess
-    JAX init); past the TTL the probe runs again."""
-    import json
-    import time as _t
-
-    import numpy as np
-
-    from ngstpu.utils import linkprobe as lp
-
-    monkeypatch.setattr(lp, "_cache_path", lambda: tmp_path / "lp.json")
-    monkeypatch.delenv("NGSTPU_LINK", raising=False)
-
-    def boom(*a, **k):
-        raise AssertionError("probe subprocess must not run on a cache hit")
-
-    monkeypatch.setattr(lp, "_timed_put", boom)
-    # 5 minutes old — beyond the old 60s TTL, within the 900s default
-    (tmp_path / "lp.json").write_text(json.dumps(
-        {"v": "host", "ts": _t.time() - 300.0, "backend": lp._backend()}))
-    monkeypatch.setattr(lp, "_VERDICT", [])
-    big = np.zeros(9 << 20, np.uint8)
-    assert lp.probe_link(big) == "host"  # served from cache, no subprocess
-
-    # beyond the TTL the cache no longer applies and the probe DOES run
-    monkeypatch.setenv("NGSTPU_LINK_TTL", "100")
-    monkeypatch.setattr(lp, "_VERDICT", [])
-    monkeypatch.setattr(lp, "_timed_put", lambda *a, **k: 1e9)  # dead-slow
-    assert lp.probe_link(big) == "host"
-    d = json.loads((tmp_path / "lp.json").read_text())
-    assert _t.time() - d["ts"] < 60  # re-vote refreshed the timestamp
